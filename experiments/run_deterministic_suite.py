@@ -9,32 +9,29 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-import jax
-
-if os.environ.get("LBFGS_FORCE_CPU"):
-    jax.config.update("jax_platforms", "cpu")
-
-
 import argparse
 
 import jax
 
+from lbfgs_ffnn.utils.compile_cache import enable_compile_cache
+
 parser = argparse.ArgumentParser()
-parser.add_argument("--f32", action="store_true", help="run in float32 (TPU-native)")
+parser.add_argument("--f32", action="store_true", help="run in float32")
 args = parser.parse_args()
+enable_compile_cache()
 if not args.f32:
     jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from lbfgs_ffnn_tpu.harness import TestCase, TestSuite  # noqa: E402
-from lbfgs_ffnn_tpu.objectives.analytic import (  # noqa: E402
+from lbfgs_ffnn.harness import TestCase, TestSuite  # noqa: E402
+from lbfgs_ffnn.objectives.analytic import (  # noqa: E402
     ackley_problem, ackley_start,
     rastrigin_problem, rastrigin_start,
     rosenbrock_problem, rosenbrock_start,
 )
-from lbfgs_ffnn_tpu.solvers import (  # noqa: E402
+from lbfgs_ffnn.solvers import (  # noqa: E402
     BFGSOptions, LBFGSOptions, NewtonOptions, bfgs, lbfgs, newton,
 )
 

@@ -3,9 +3,9 @@
 Measures iterations/s of the full-batch L-BFGS step and of an S-LBFGS epoch
 at mesh sizes 1, 2, 4, ... up to the available device count, with the
 dataset sharded over the mesh and solver state replicated — the
-scaling-efficiency deliverable from BASELINE.json. On a single-chip/CPU
-machine run with XLA_FLAGS=--xla_force_host_platform_device_count=8 to
-exercise the mechanism; on a pod slice it reports real ICI scaling.
+scaling-efficiency deliverable from BASELINE.json. On a CPU machine run
+with JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 to
+exercise the mechanism; on a multi-GPU host it reports real scaling.
 
 Usage: python experiments/run_scaling.py [--train-size 65536] [--iters 50]
 """
@@ -16,19 +16,20 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-if os.environ.get("LBFGS_FORCE_CPU"):
-    jax.config.update("jax_platforms", "cpu")
+from lbfgs_ffnn.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import argparse
 import time
 
 import jax.numpy as jnp
 
-from lbfgs_ffnn_tpu.data.datasets import load_mnist
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_batch_problem, mlp_init, mlp_problem, mlp_spec
-from lbfgs_ffnn_tpu.parallel import make_mesh, replicate, shard_batch
-from lbfgs_ffnn_tpu.solvers import LBFGSOptions, SLBFGSOptions, lbfgs, slbfgs
-from lbfgs_ffnn_tpu.utils.diagnostics import check_parallelism
+from lbfgs_ffnn.data.datasets import load_mnist
+from lbfgs_ffnn.objectives.mlp import mlp_batch_problem, mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn.parallel import make_mesh, replicate, shard_batch
+from lbfgs_ffnn.solvers import LBFGSOptions, SLBFGSOptions, lbfgs, slbfgs
+from lbfgs_ffnn.utils.diagnostics import check_parallelism
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--train-size", type=int, default=65536)
@@ -40,7 +41,7 @@ check_parallelism()
 if jax.default_backend() == "cpu":
     print("NOTE: virtual CPU devices share one physical machine — this run "
           "validates the sharding/collective mechanism, not real scaling; "
-          "efficiency numbers are meaningful on TPU hardware only.")
+          "efficiency numbers are meaningful on accelerators only.")
 n_dev_total = jax.device_count()
 sizes = [d for d in (1, 2, 4, 8, 16, 32, 64) if d <= n_dev_total]
 

@@ -5,10 +5,10 @@ format, written by experiments/run_burgers.py), solves the same PDE with
 the fine-grid finite-difference oracle (scripts/burgers_fd.py), and prints
 mean/max |u_PINN - u_FD| at the interpolation snapshots t = 0, 0.5, 1.0.
 
-Pass/fail gate (the round-1 VERDICT's criterion for the f32 TPU run):
+Pass/fail gate (the criterion set for the f32 run):
 mean |u - u_FD| <= 0.02 at every snapshot.
 
-Usage: python scripts/burgers_validate.py results/tpu_burgers/burgers_test_extrapolation.csv
+Usage: python scripts/burgers_validate.py burgers_test_extrapolation.csv
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Production S-LBFGS epoch cost decomposition (slope protocol).
 
-diag_stochastic_step.py measures the inner-step REPLICA at ~30 us on the
-N=5000 b=256 headline config — 19 steps = 0.57 ms/epoch — while the
-production epoch measures ~2 ms. This script slopes the PRODUCTION solver
-(epochs K1 vs K2) under option knockouts to locate the difference:
+diag_stochastic_step.py measures the inner-step REPLICA on the N=5000
+b=256 headline config; 19 such steps need not add up to the production
+epoch. This script slopes the PRODUCTION solver (epochs K1 vs K2) under
+option knockouts to locate the difference:
 recorder off, sampler choice, two-loop impl, m_inner scaling.
 
-Usage: python scripts/diag_slbfgs_epoch.py   (real chip; LBFGS_FORCE_CPU=1 ok)
+Usage: python scripts/diag_slbfgs_epoch.py   (GPU; JAX_PLATFORMS=cpu for a smoke run)
 """
 import os
 import sys
@@ -15,17 +15,18 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-if os.environ.get("LBFGS_FORCE_CPU"):
-    jax.config.update("jax_platforms", "cpu")
+from lbfgs_ffnn.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import argparse
 import time
 
 import jax.numpy as jnp
 
-from lbfgs_ffnn_tpu.data.datasets import load_mnist
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
-from lbfgs_ffnn_tpu.solvers import SLBFGSOptions, slbfgs
+from lbfgs_ffnn.data.datasets import load_mnist
+from lbfgs_ffnn.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
+from lbfgs_ffnn.solvers import SLBFGSOptions, slbfgs
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--train-size", type=int, default=5000)
@@ -44,8 +45,7 @@ ds = load_mnist(train_size=args.train_size, test_size=16)
 x, y = jnp.asarray(ds.train_x, jnp.float32), jnp.asarray(ds.train_y, jnp.float32)
 
 BASE = dict(tol=1e-12, history=10, L=10, batch_size=256, hvp_batch_size=128,
-            step_size=0.02,
-            two_loop_impl="pallas" if jax.default_backend() == "tpu" else "xla")
+            step_size=0.02, two_loop_impl="xla")
 
 
 def epoch_slope(name, **kw):
@@ -85,7 +85,7 @@ m57 = maybe("m_inner=57", m_inner=57)
 m19 = maybe("m_inner=19 (explicit default)", m_inner=19)
 # scan_unroll: unrolls the L-step vr_step scan bodies (bit-identical
 # trajectories; tests/test_stochastic.py) — does less scan loop machinery
-# pay at the measured ~44 us/step?
+# pay at the measured per-step cost?
 u2 = maybe("unroll=2", scan_unroll=2)
 u5 = maybe("unroll=5 (L/2)", scan_unroll=5)
 

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lbfgs_ffnn_tpu.objectives.analytic import rosenbrock_problem, rosenbrock_start
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
-from lbfgs_ffnn_tpu.solvers import (
+from lbfgs_ffnn.objectives.analytic import rosenbrock_problem, rosenbrock_start
+from lbfgs_ffnn.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
+from lbfgs_ffnn.solvers import (
     LBFGSOptions,
     SGDOptions,
     SLBFGSOptions,

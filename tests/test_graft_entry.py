@@ -1,9 +1,8 @@
-"""Driver-contract smoke tests for __graft_entry__.py.
+"""Contract tests for __graft_entry__.py.
 
-The round driver compile-checks ``entry()`` single-chip and executes
-``dryrun_multichip(N)`` on N virtual CPU devices; nothing else in the suite
-imports the module, so a regression there would otherwise only surface at
-round end.
+``entry()`` is compile-checked on one device and ``dryrun_multichip(N)``
+runs on N virtual CPU devices; nothing else in the suite imports the
+module, so a regression there would otherwise go unnoticed.
 """
 
 import importlib
@@ -12,6 +11,7 @@ import sys
 
 import jax
 import jax.numpy as jnp
+import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
@@ -31,3 +31,12 @@ def test_dryrun_multichip_8():
     # and shard_map data-parallel S-LBFGS paths plus the param-sharded
     # L-BFGS (loop and compact/bf16-ring) and asserts finiteness itself.
     graft.dryrun_multichip(8)
+
+
+def test_dryrun_multichip_raises_with_too_few_devices():
+    """No fallback: asking for more devices than JAX sees is an error, not
+    a silent switch of platform."""
+    n = len(jax.devices())
+    with pytest.raises(RuntimeError, match=f"need {n + 1} devices, have {n}"):
+        graft.dryrun_multichip(n + 1)
+    assert jax.default_backend() == "cpu"

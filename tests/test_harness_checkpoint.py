@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lbfgs_ffnn_tpu.harness import TestCase, TestSuite, classify
-from lbfgs_ffnn_tpu.objectives.analytic import rosenbrock_problem, rosenbrock_start
-from lbfgs_ffnn_tpu.ops.two_loop import empty_history_state, ring_push
-from lbfgs_ffnn_tpu.solvers import BFGSOptions, LBFGSOptions, bfgs, lbfgs
-from lbfgs_ffnn_tpu.checkpoint import (
+from lbfgs_ffnn.harness import TestCase, TestSuite, classify
+from lbfgs_ffnn.objectives.analytic import rosenbrock_problem, rosenbrock_start
+from lbfgs_ffnn.ops.two_loop import empty_history_state, ring_push
+from lbfgs_ffnn.solvers import BFGSOptions, LBFGSOptions, bfgs, lbfgs
+from lbfgs_ffnn.checkpoint import (
     load_weights_npz,
     restore_checkpoint,
     save_checkpoint,
@@ -75,7 +75,7 @@ def test_lbfgs_chunked_checkpoint_resume(tmp_path, pair_dtype):
     fresh driver, and reach the identical final result. Parametrized over
     the bf16 curvature ring: the narrow ring must survive the Orbax
     round-trip (dtype-preserving) and resume deterministically."""
-    from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
+    from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
 
     prob = rosenbrock_problem()
     x0 = rosenbrock_start(4)
@@ -143,8 +143,8 @@ def test_checkpoint_restore_fills_new_fields(tmp_path):
 def test_lbfgs_chunked_resume_with_line_prefix(tmp_path):
     """Kill-and-resume through a problem that carries a line prefix (MLP):
     the prefix is part of the chunk state and must round-trip."""
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-    from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
 
     spec = mlp_spec([6, 8, 3], ["relu", "linear"])
     prob = mlp_problem(spec)
@@ -238,7 +238,7 @@ def test_checkpoint_value_error_with_matching_structure_propagates(tmp_path, mon
     template exactly, the original error must propagate."""
     import pytest
 
-    import lbfgs_ffnn_tpu.checkpoint as cp
+    import lbfgs_ffnn.checkpoint as cp
 
     class FakeCkptr:
         def restore(self, path, template=None):
@@ -255,7 +255,7 @@ def test_checkpoint_extra_saved_fields_is_structure_mismatch(tmp_path, monkeypat
     """Downgrade case: the saved tree holds MORE fields than the template —
     a genuine structure disagreement, so the migration overlay applies (the
     extra field is dropped, the matching ones restore)."""
-    import lbfgs_ffnn_tpu.checkpoint as cp
+    import lbfgs_ffnn.checkpoint as cp
 
     class FakeCkptr:
         def restore(self, path, template=None):
@@ -275,7 +275,7 @@ def test_checkpoint_shim_failure_propagates_original_error(tmp_path, monkeypatch
     shim failure replacing it."""
     import pytest
 
-    import lbfgs_ffnn_tpu.checkpoint as cp
+    import lbfgs_ffnn.checkpoint as cp
 
     class FakeCkptr:
         def restore(self, path, template=None):
@@ -296,7 +296,7 @@ def test_checkpoint_sequence_as_dict_with_alien_keys(tmp_path, monkeypatch):
     mis-aligning elements or crashing on the sort key."""
     import pytest
 
-    import lbfgs_ffnn_tpu.checkpoint as cp
+    import lbfgs_ffnn.checkpoint as cp
 
     class FakeCkptr:
         def restore(self, path, template=None):
@@ -320,8 +320,8 @@ def test_lbfgs_chunked_resume_recomputes_stale_prefix(tmp_path):
     hazard) must be healed: lbfgs_chunked recomputes the prefix from the
     restored iterate, so the resumed trajectory matches the uninterrupted
     run instead of silently optimizing a wrong line restriction."""
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-    from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
 
     spec = mlp_spec([6, 8, 3], ["relu", "linear"])
     prob = mlp_problem(spec)
@@ -356,8 +356,8 @@ def test_lbfgs_chunked_resume_with_grad_input_dtype(tmp_path):
     each chunk prepares the bf16 input copy itself — both shapes must
     coexist, and the resumed trajectory must match the uninterrupted run."""
     import jax.numpy as jnp
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-    from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
 
     rng = np.random.default_rng(11)
     x = jnp.asarray(rng.normal(size=(128, 10)), jnp.float32)

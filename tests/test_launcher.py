@@ -4,9 +4,9 @@ runner flow at small scale: tests/mnist/main-cpu.cpp)."""
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.data.datasets import load_mnist
-from lbfgs_ffnn_tpu.launcher import Launcher, UnifiedConfig
-from lbfgs_ffnn_tpu.recorder import read_history_csv
+from lbfgs_ffnn.data.datasets import load_mnist
+from lbfgs_ffnn.launcher import Launcher, UnifiedConfig
+from lbfgs_ffnn.recorder import read_history_csv
 
 DS = load_mnist(train_size=512, test_size=256)
 

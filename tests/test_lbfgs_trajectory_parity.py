@@ -13,7 +13,7 @@ line search, to the reference policy.
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.analytic import (
+from lbfgs_ffnn.objectives.analytic import (
     ackley,
     ackley_grad,
     ackley_problem,
@@ -23,8 +23,8 @@ from lbfgs_ffnn_tpu.objectives.analytic import (
     rosenbrock_problem,
     rosenbrock_start,
 )
-from lbfgs_ffnn_tpu.solvers import LBFGSOptions
-from lbfgs_ffnn_tpu.solvers.lbfgs import _cached_chunk_fns
+from lbfgs_ffnn.solvers import LBFGSOptions
+from lbfgs_ffnn.solvers.lbfgs import _cached_chunk_fns
 
 
 def np_two_loop(g, s_list, y_list, rho_list):

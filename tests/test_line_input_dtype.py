@@ -2,8 +2,7 @@
 line-restriction GEMMs (B = x @ W1_p per iteration, A init/refresh,
 line_fun).
 
-On TPU this is numerically free (the default f32 dot rounds operands to
-bf16 on the MXU, so the products are bitwise those of the f32 read); on the
+The products differ from the f32 read's by one bf16 rounding of x; on the
 CPU test backend the dot units are true f32, so values shift by exactly one
 bf16 rounding of x — these tests pin the structure (prepare created, narrow
 read actually used, full-width prefix dtype) and bound the value drift.
@@ -14,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
-from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
-from lbfgs_ffnn_tpu.types import prepared_aux
+from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
+from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
+from lbfgs_ffnn.types import prepared_aux
 
 
 def _setup(d_in=9, d1=6, d_out=3, n=64, seed=0):
@@ -48,7 +47,7 @@ def test_line_input_prepare_and_prefix_dtype():
 
 def test_line_input_values_within_operand_rounding():
     """Trial values through the narrow read match the f32 problem to bf16
-    operand-rounding of x (exactly what TPU's default f32 dot does anyway)."""
+    operand-rounding of x."""
     spec, w, p, x, y = _setup()
     prob_f = mlp_problem(spec)
     prob_l = mlp_problem(spec, line_input_dtype="bfloat16")
@@ -129,7 +128,7 @@ def test_line_input_chunked_resume_reinit_uses_prepared_aux():
     """lbfgs_chunked resume re-derives the carried prefix through PREPARED
     aux (the bf16 copy), matching the in-run prefix to f32 ulps — a raw-f32
     re-init would shift every subsequent trial by one operand rounding
-    off-TPU (regression: the re-init once read aux[0] directly)."""
+    (regression: the re-init once read aux[0] directly)."""
     rng = np.random.default_rng(3)
     X = jnp.asarray(rng.normal(size=(128, 16)), jnp.float32)
     Y = jax.nn.one_hot(jnp.asarray(rng.integers(0, 4, 128)), 4,
@@ -149,8 +148,8 @@ def test_line_input_chunked_resume_reinit_uses_prepared_aux():
 
 
 def test_line_input_launcher_end_to_end():
-    from lbfgs_ffnn_tpu.data.datasets import load_mnist
-    from lbfgs_ffnn_tpu.launcher import Launcher, UnifiedConfig
+    from lbfgs_ffnn.data.datasets import load_mnist
+    from lbfgs_ffnn.launcher import Launcher, UnifiedConfig
 
     ds = load_mnist(train_size=256, test_size=64)
     l = (Launcher("cuda").add_layer(784, 16, "relu")

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lbfgs_ffnn_tpu.ops.linesearch import armijo_quad_line_search, wolfe_line_search
+from lbfgs_ffnn.ops.linesearch import armijo_quad_line_search, wolfe_line_search
 
 
 def quad_vag(center, scale=1.0):
@@ -112,8 +112,8 @@ def test_wolfe_value_only_matches_fused():
 def test_lbfgs_value_only_matches_fused_end_to_end():
     """Full L-BFGS solves with ls_value_only on/off must produce the same
     trajectory for both line-search flavors (small MLP, f64)."""
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-    from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
 
     spec = mlp_spec([6, 8, 3], ["relu", "linear"])
     prob = mlp_problem(spec)
@@ -184,7 +184,7 @@ def test_armijo_batched_matches_sequential_backtracking():
     """The batched ladder must accept exactly the alpha a sequential pure
     backtracking loop (no interpolation) would, for several spec_k values
     and both accept-fast and backtrack-heavy cases."""
-    from lbfgs_ffnn_tpu.ops.linesearch import armijo_batched_line_search
+    from lbfgs_ffnn.ops.linesearch import armijo_batched_line_search
 
     def val(w, aux=()):
         return jnp.sum(w**4)
@@ -222,8 +222,8 @@ def test_armijo_batched_matches_sequential_backtracking():
 
 
 def test_lbfgs_armijo_batched_trains():
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-    from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
 
     spec = mlp_spec([6, 8, 3], ["relu", "linear"])
     prob = mlp_problem(spec)
@@ -250,8 +250,8 @@ def test_eval_counters():
     On a well-scaled quadratic every search accepts its first trial, so the
     counts are exact: init 1/1, then per iteration armijo-lean adds
     (trial + final v&g) = 2 fevals / 1 geval, wolfe-fused adds 1/1."""
-    from lbfgs_ffnn_tpu.types import make_problem
-    from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
+    from lbfgs_ffnn.types import make_problem
+    from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
 
     prob = make_problem(lambda w, aux: 0.5 * jnp.sum((w - 1.0) ** 2))
     x0 = jnp.zeros(4, dtype=jnp.float64)
@@ -269,7 +269,7 @@ def test_eval_counters():
     assert int(res_w.n_gevals) == 1 + k
 
     # Same exact accounting in GD (+LS), BFGS and Newton on the quadratic.
-    from lbfgs_ffnn_tpu.solvers import (
+    from lbfgs_ffnn.solvers import (
         BFGSOptions, GDOptions, NewtonOptions, bfgs, gradient_descent, newton,
     )
 

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.ops.linesearch import armijo_quad_line_search, wolfe_line_search
+from lbfgs_ffnn.ops.linesearch import armijo_quad_line_search, wolfe_line_search
 
 
 def wolfe_mirror(f, grad, x, p, c1=1e-4, c2=0.9, rho=0.5, max_iters=50):

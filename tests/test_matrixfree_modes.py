@@ -1,6 +1,6 @@
 """Matrix-free solver modes: Newton-CG (hvp_cg) and factor-form BFGS.
 
-These are the TPU-native answers to two reference capabilities:
+These are the matrix-free answers to two reference capabilities:
   * the reference's sparse BFGS instantiation ``BFGS<V, SparseMatrix,
     ConjugateGradient>`` (reference: src/minimizer/bfgs.hpp:11-14) — here
     ``BFGSOptions(storage="factors")`` never materializes B and solves with
@@ -16,9 +16,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.analytic import rosenbrock_problem, rosenbrock_start
-from lbfgs_ffnn_tpu.solvers import BFGSOptions, NewtonOptions, bfgs, newton
-from lbfgs_ffnn_tpu.types import DENSE_HESSIAN_LIMIT, make_problem
+from lbfgs_ffnn.objectives.analytic import rosenbrock_problem, rosenbrock_start
+from lbfgs_ffnn.solvers import BFGSOptions, NewtonOptions, bfgs, newton
+from lbfgs_ffnn.types import DENSE_HESSIAN_LIMIT, make_problem
 
 
 def test_default_dense_hessian_guard_raises_for_large_n():
@@ -54,7 +54,7 @@ def test_newton_hvp_cg_matches_dense_on_rosenbrock():
 def test_newton_hvp_cg_on_mlp_scale_problem():
     """Matrix-free Newton runs where the dense default would refuse: an MLP
     objective whose autodiff Hessian is guarded (hess=None equivalent)."""
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
 
     spec = mlp_spec([8, 16, 4], ["tanh", "linear"])
     prob = mlp_problem(spec)
@@ -107,7 +107,7 @@ def test_cg_counted_exact_counts():
     """Counter exactness at both ends: CG on an SPD matrix with k distinct
     eigenvalues converges in exactly k iterations (= k matvecs from x0=0),
     and an unconverged run counts exactly maxiter."""
-    from lbfgs_ffnn_tpu.ops.iterative import cg_counted
+    from lbfgs_ffnn.ops.iterative import cg_counted
 
     d = jnp.concatenate([
         jnp.full((20,), 1.0), jnp.full((20,), 3.0), jnp.full((10,), 7.0)
@@ -123,7 +123,7 @@ def test_cg_counted_exact_counts():
 def test_gmres_counted_exact_counts():
     """Each restart cycle costs restart+1 matvecs; an unconverged run with
     maxiter cycles counts exactly maxiter*(restart+1)."""
-    from lbfgs_ffnn_tpu.ops.iterative import gmres_counted
+    from lbfgs_ffnn.ops.iterative import gmres_counted
 
     rng = np.random.default_rng(0)
     A = jnp.asarray(rng.normal(size=(30, 30)) + 6.0 * np.eye(30))

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.mlp import (
+from lbfgs_ffnn.objectives.mlp import (
     evaluate,
     mlp_apply,
     mlp_batch_problem,
@@ -129,7 +129,7 @@ def test_evaluate_reports_accuracy_and_mse():
 
 
 def test_bf16_compute_mode_close_to_f32():
-    """bf16 MXU operands with f32 accumulation: loss/grad within bf16
+    """bf16 matmul operands with f32 accumulation: loss/grad within bf16
     tolerance of the f32 path, and training still converges."""
     spec = mlp_spec([16, 8, 4], ["relu", "linear"])
     w = mlp_init(spec, jax.random.PRNGKey(20), dtype=jnp.float32)
@@ -153,7 +153,7 @@ def test_mlp_line_fun_matches_full_objective():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
 
     for lam in (0.0, 1e-4):
         spec = mlp_spec([7, 5, 3], ["relu", "linear"])
@@ -195,7 +195,7 @@ def test_mlp_line_prefix_matches_line_fun_and_objective():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
 
     spec = mlp_spec([7, 5, 3], ["relu", "linear"])
     prob = mlp_problem(spec)
@@ -240,7 +240,7 @@ def test_mlp_problem_remat_grads_match():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
 
     spec = mlp_spec([7, 6, 3], ["tanh", "linear"])
     plain = mlp_problem(spec)
@@ -262,7 +262,7 @@ def test_mlp_vag_restrict_matches_autodiff():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
 
     for dims, acts, lam in (
         ([7, 5, 3], ["relu", "linear"], 0.0),
@@ -291,7 +291,7 @@ def test_mlp_vag_restrict_matches_autodiff():
 def test_mlp_remat_problem_has_no_vag_restrict():
     """remat=True must not attach vag_restrict (its backward stores the
     rest-layer activations, defeating the memory guarantee)."""
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_problem, mlp_spec
+    from lbfgs_ffnn.objectives.mlp import mlp_problem, mlp_spec
 
     spec = mlp_spec([7, 5, 3], ["relu", "linear"])
     assert mlp_problem(spec).line_prefix.vag_restrict is not None
@@ -306,8 +306,8 @@ def test_mlp_grad_input_dtype():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-    from lbfgs_ffnn_tpu.types import prepared_aux
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.types import prepared_aux
 
     spec = mlp_spec([9, 6, 3], ["relu", "linear"])
     prob_f = mlp_problem(spec)
@@ -351,8 +351,8 @@ def test_lbfgs_grad_input_dtype_trains():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-    from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
 
     rng = np.random.default_rng(7)
     X = jnp.asarray(rng.normal(size=(256, 16)), jnp.float32)

@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lbfgs_ffnn_tpu.data.datasets import load_mnist
-from lbfgs_ffnn_tpu.data.outofcore import ChunkStore, outofcore_problem
-from lbfgs_ffnn_tpu.objectives.mlp import (
+from lbfgs_ffnn.data.datasets import load_mnist
+from lbfgs_ffnn.data.outofcore import ChunkStore, outofcore_problem
+from lbfgs_ffnn.objectives.mlp import (
     mlp_batch_problem, mlp_init, mlp_problem, mlp_spec,
 )
-from lbfgs_ffnn_tpu.solvers import LBFGSOptions, SLBFGSOptions, lbfgs, slbfgs
+from lbfgs_ffnn.solvers import LBFGSOptions, SLBFGSOptions, lbfgs, slbfgs
 
 SPEC = mlp_spec([784, 16, 10], ["relu", "linear"])
 DS = load_mnist(train_size=400, test_size=64)
@@ -73,7 +73,7 @@ def test_outofcore_mlp_lean_trials_parity():
     (N, d1) line prefix — every trial device-resident — matches the in-HBM
     lean run's f64 trajectory AND its exact trial accounting (same lean
     policy both sides), for both line-search families."""
-    from lbfgs_ffnn_tpu.data.outofcore import outofcore_mlp_problem
+    from lbfgs_ffnn.data.outofcore import outofcore_mlp_problem
 
     for ls in ("armijo", "wolfe"):
         opts = LBFGSOptions(max_iters=12, tol=1e-14, m=5, line_search=ls,
@@ -94,7 +94,7 @@ def test_outofcore_mlp_lean_trials_parity():
 
 
 def test_outofcore_mlp_lean_trials_with_regularizer():
-    from lbfgs_ffnn_tpu.data.outofcore import outofcore_mlp_problem
+    from lbfgs_ffnn.data.outofcore import outofcore_mlp_problem
 
     opts = LBFGSOptions(max_iters=8, tol=1e-14, m=4, line_search="armijo",
                         prefix_vag=False)

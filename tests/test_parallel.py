@@ -10,16 +10,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.data.datasets import load_mnist
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_batch_problem, mlp_init, mlp_problem, mlp_spec
-from lbfgs_ffnn_tpu.parallel import (
+from lbfgs_ffnn.data.datasets import load_mnist
+from lbfgs_ffnn.objectives.mlp import mlp_batch_problem, mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn.parallel import (
     data_parallel_batch_problem,
     data_parallel_problem,
     make_mesh,
     replicate,
     shard_batch,
 )
-from lbfgs_ffnn_tpu.solvers import (
+from lbfgs_ffnn.solvers import (
     LBFGSOptions,
     SGDOptions,
     SLBFGSOptions,
@@ -232,7 +232,7 @@ def test_slbfgs_sharded_deterministic():
 def test_two_loop_param_sharded_matches_single_device():
     """Parameter-axis sharded two-loop: partial dots + psum over the mesh
     reproduce the single-device recursion exactly (up to reduction order)."""
-    from lbfgs_ffnn_tpu.ops.two_loop import (
+    from lbfgs_ffnn.ops.two_loop import (
         empty_history_state, ring_push, two_loop, two_loop_sharded,
     )
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -320,15 +320,6 @@ def test_lbfgs_param_sharded_wolfe_f32():
     assert int(res.n_fevals) == int(ref.n_fevals)
 
 
-def test_lbfgs_param_sharded_rejects_pallas():
-    mesh = make_mesh(axis_name="model")
-    with pytest.raises(ValueError, match="single-device kernel"):
-        lbfgs(
-            mlp_problem(SPEC), W0, aux=(X, Y),
-            opts=LBFGSOptions(max_iters=2, two_loop_impl="pallas"), mesh=mesh,
-        )
-
-
 def test_slbfgs_global_sampling_trajectory_matches_single_device():
     """Layout-invariant explicit S-LBFGS (VERDICT round 1, item 6): with
     sampling='global' the replicated key draws the exact batches of the
@@ -366,7 +357,7 @@ def test_slbfgs_global_sampling_trajectory_matches_single_device():
 def test_slbfgs_chunked_mesh_mode_matches_whileloop():
     """The chunked driver composes with the explicit-sharded mode: same
     trajectory as the mesh while_loop run, measured time per epoch."""
-    from lbfgs_ffnn_tpu.solvers.slbfgs import slbfgs_chunked
+    from lbfgs_ffnn.solvers.slbfgs import slbfgs_chunked
 
     mesh = make_mesh()
     bp = mlp_batch_problem(SPEC, lam=1e-4)
@@ -423,8 +414,8 @@ def test_lbfgs_param_sharded_chunked_checkpoint_resume(tmp_path):
     body in chunks, the sharded RingState round-trips through Orbax, and the
     restored state resumes onto a FRESH mesh (the checkpoint is layout-free;
     the body's sharding constraints re-shard it)."""
-    from lbfgs_ffnn_tpu.checkpoint import restore_checkpoint, save_checkpoint
-    from lbfgs_ffnn_tpu.solvers.lbfgs import LBFGSOptions, lbfgs_chunked
+    from lbfgs_ffnn.checkpoint import restore_checkpoint, save_checkpoint
+    from lbfgs_ffnn.solvers.lbfgs import LBFGSOptions, lbfgs_chunked
 
     spec = mlp_spec([12, 16, 4], ["tanh", "linear"])
     prob = mlp_problem(spec)
@@ -476,7 +467,7 @@ def test_lbfgs_param_sharded_chunked_checkpoint_resume(tmp_path):
 
 
 def _filled_gram_ring(n, m, k, dtype=jnp.float64, seed=0):
-    from lbfgs_ffnn_tpu.ops.two_loop import gram_empty, gram_push
+    from lbfgs_ffnn.ops.two_loop import gram_empty, gram_push
 
     rng = np.random.default_rng(seed)
     gr = gram_empty(m, n, dtype)
@@ -495,7 +486,7 @@ def test_two_loop_sharded_compact_matches_loop():
     scalar-psum sharded recursion and the single-device loop form in f64,
     across fill levels, wrap-around and both gamma policies."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from lbfgs_ffnn_tpu.ops.two_loop import (
+    from lbfgs_ffnn.ops.two_loop import (
         two_loop, two_loop_sharded, two_loop_sharded_compact,
     )
 
@@ -564,7 +555,7 @@ def test_two_loop_sharded_compact_collective_count():
     compact form (actual: 2 — the c and d m-vector psums, both OUTSIDE any
     loop so the executed count equals the eqn count), vs the loop form whose
     per-pair dots psum inside the recursion loops (~2m+2 executed)."""
-    from lbfgs_ffnn_tpu.ops.two_loop import (
+    from lbfgs_ffnn.ops.two_loop import (
         two_loop_sharded, two_loop_sharded_compact,
     )
 
@@ -616,7 +607,7 @@ def test_two_loop_param_sharded_bf16_ring():
     partial dot promotes its bf16 rows against the f32 working shard BEFORE
     the psum, so cross-device accumulation is f32 — the sharded direction
     matches the single-device bf16-ring direction up to reduction order."""
-    from lbfgs_ffnn_tpu.ops.two_loop import (
+    from lbfgs_ffnn.ops.two_loop import (
         empty_history_state, ring_push, two_loop, two_loop_sharded,
     )
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -744,8 +735,8 @@ def test_lbfgs_dp_tp_chunked_resume(tmp_path):
     a FRESH 2-D mesh bitwise."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from lbfgs_ffnn_tpu.checkpoint import restore_checkpoint, save_checkpoint
-    from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
+    from lbfgs_ffnn.checkpoint import restore_checkpoint, save_checkpoint
+    from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices for a (2, 4) mesh")

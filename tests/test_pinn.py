@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_apply, mlp_spec
-from lbfgs_ffnn_tpu.objectives.pinn import (
+from lbfgs_ffnn.objectives.mlp import mlp_apply, mlp_spec
+from lbfgs_ffnn.objectives.pinn import (
     BURGERS_NU,
     burgers_points,
     burgers_problem,
@@ -21,7 +21,7 @@ from lbfgs_ffnn_tpu.objectives.pinn import (
     oscillator_problem,
     pinn_init,
 )
-from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
+from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
 
 
 def test_pinn_init_xavier_bounds():
@@ -98,10 +98,10 @@ def test_burgers_data_parallel_matches_single_device():
     sharded over the 8-virtual-device mesh: loss and gradient match the
     single-device objective, and a short f64 L-BFGS trajectory stays on the
     single-device trajectory."""
-    from lbfgs_ffnn_tpu.objectives.pinn import (
+    from lbfgs_ffnn.objectives.pinn import (
         pad_burgers_points, shard_burgers_points,
     )
-    from lbfgs_ffnn_tpu.parallel import make_mesh
+    from lbfgs_ffnn.parallel import make_mesh
 
     if len(jax.devices()) < 2:
         pytest.skip("needs multi-device (virtual CPU farm)")
@@ -159,14 +159,14 @@ def test_residual_formulations_agree():
 
 def test_pinn_objectives_trace_highest_precision_matmuls():
     """The PINN losses must trace their dots at HIGHEST matmul precision:
-    TPU's default f32 dot uses bf16 multiplies, which poisons the
+    A default-precision f32 dot may use bf16/TF32 multiplies, which poison the
     forward-over-forward u_xx derivatives badly enough that f32 L-BFGS
     stalls ~20x above the f64 loss (measured; see objectives/pinn.py
     docstring). This pins the fix at the jaxpr level so it cannot silently
     regress."""
     import jax
     from jax import lax
-    from lbfgs_ffnn_tpu.objectives.pinn import (
+    from lbfgs_ffnn.objectives.pinn import (
         burgers_points, burgers_problem, oscillator_points, oscillator_problem,
     )
 

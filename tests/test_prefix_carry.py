@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
-from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
-from lbfgs_ffnn_tpu.types import LinePrefix, make_problem
+from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
+from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
+from lbfgs_ffnn.types import LinePrefix, make_problem
 
 
 def _small(seed=7, n=256, d=16, c=4):
@@ -121,7 +121,7 @@ def test_wolfe_keeps_axpy_path():
 def test_carry_param_sharded():
     """Mesh mode: the padded carry adapter threads P_new through; the
     sharded run matches the unsharded one."""
-    from lbfgs_ffnn_tpu.parallel.mesh import make_mesh
+    from lbfgs_ffnn.parallel.mesh import make_mesh
 
     spec, w0, X, Y = _small(seed=17)
     prob = mlp_problem(spec)

@@ -16,9 +16,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
-from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
+from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
+from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
 
 
 def _small(seed=7, n=256, d=16, c=4):
@@ -105,7 +105,7 @@ def test_prefix_dtype_counters_unchanged():
 def test_prefix_dtype_param_sharded():
     """Mesh mode: the padded LinePrefix adapters pass the narrow prefix
     through unchanged; the sharded solve trains like the f32 one."""
-    from lbfgs_ffnn_tpu.parallel.mesh import make_mesh
+    from lbfgs_ffnn.parallel.mesh import make_mesh
 
     mesh8 = make_mesh(axis_name="model")
     spec, w0, X, Y = _small(seed=17)

@@ -30,11 +30,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.ops.sampling import sample_without_replacement
-from lbfgs_ffnn_tpu.objectives.mlp import (
+from lbfgs_ffnn.ops.sampling import sample_without_replacement
+from lbfgs_ffnn.objectives.mlp import (
     mlp_batch_problem, mlp_init, mlp_problem, mlp_spec,
 )
-from lbfgs_ffnn_tpu.solvers import (
+from lbfgs_ffnn.solvers import (
     GDOptions, LBFGSOptions, SGDOptions, SLBFGSOptions,
     gradient_descent, lbfgs, sgd, slbfgs,
 )
@@ -60,7 +60,7 @@ def g_np(w):
 
 
 def _lbfgs_trajectory(opts, iters):
-    from lbfgs_ffnn_tpu.solvers.lbfgs import _cached_chunk_fns
+    from lbfgs_ffnn.solvers.lbfgs import _cached_chunk_fns
 
     init, run_chunk = _cached_chunk_fns(PROB, opts, 1)
     state = init(jnp.asarray(W0), (X, Y))
@@ -327,7 +327,7 @@ def test_slbfgs_trajectory_parity_mlp():
     ref = reference_slbfgs(W0.copy(), opts, epochs)
     assert len(ref) == epochs
 
-    from lbfgs_ffnn_tpu.solvers.slbfgs import _cached_chunk_fns
+    from lbfgs_ffnn.solvers.slbfgs import _cached_chunk_fns
 
     init, run_chunk = _cached_chunk_fns(BP, opts, N, None, "data", 1)
     state = init(jnp.asarray(W0), X, Y)

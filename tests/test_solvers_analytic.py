@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.analytic import (
+from lbfgs_ffnn.objectives.analytic import (
     ackley_problem,
     ackley_start,
     rastrigin_problem,
@@ -20,7 +20,7 @@ from lbfgs_ffnn_tpu.objectives.analytic import (
     rosenbrock_problem,
     rosenbrock_start,
 )
-from lbfgs_ffnn_tpu.solvers import (
+from lbfgs_ffnn.solvers import (
     BFGSOptions,
     GDOptions,
     LBFGSOptions,
@@ -159,7 +159,7 @@ def test_lbfgs_solves_with_autodiff_gradients():
 def test_lbfgs_chunked_matches_while_loop():
     """The chunked driver must reproduce the while_loop run exactly and
     return measured cumulative times."""
-    from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
+    from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
 
     x0 = rosenbrock_start(4)
     opts = LBFGSOptions(max_iters=200, tol=1e-12, m=16)

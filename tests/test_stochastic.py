@@ -5,15 +5,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from lbfgs_ffnn_tpu.data.datasets import load_mnist
-from lbfgs_ffnn_tpu.objectives.mlp import (
+from lbfgs_ffnn.data.datasets import load_mnist
+from lbfgs_ffnn.objectives.mlp import (
     evaluate,
     mlp_batch_problem,
     mlp_init,
     mlp_problem,
     mlp_spec,
 )
-from lbfgs_ffnn_tpu.solvers import (
+from lbfgs_ffnn.solvers import (
     LBFGSOptions,
     SGDOptions,
     SLBFGSOptions,
@@ -176,8 +176,8 @@ def test_slbfgs_chunked_matches_whileloop_run():
     """The chunked driver runs the identical epoch body, so its trajectory
     is bitwise the while_loop run's; time_ms is measured per chunk."""
     import numpy as np
-    from lbfgs_ffnn_tpu.solvers import SLBFGSOptions, slbfgs
-    from lbfgs_ffnn_tpu.solvers.slbfgs import slbfgs_chunked
+    from lbfgs_ffnn.solvers import SLBFGSOptions, slbfgs
+    from lbfgs_ffnn.solvers.slbfgs import slbfgs_chunked
 
     prob, w0, x, y = _mlp_setup()
     opts = SLBFGSOptions(epochs=8, tol=1e-12, history=4, L=3,
@@ -202,9 +202,9 @@ def test_slbfgs_chunked_checkpoint_resume(tmp_path):
     (VERDICT round 1, item 4)."""
     import jax
     import numpy as np
-    from lbfgs_ffnn_tpu.checkpoint import restore_checkpoint, save_checkpoint
-    from lbfgs_ffnn_tpu.solvers import SLBFGSOptions
-    from lbfgs_ffnn_tpu.solvers.slbfgs import slbfgs_chunked
+    from lbfgs_ffnn.checkpoint import restore_checkpoint, save_checkpoint
+    from lbfgs_ffnn.solvers import SLBFGSOptions
+    from lbfgs_ffnn.solvers.slbfgs import slbfgs_chunked
 
     prob, w0, x, y = _mlp_setup()
     opts = SLBFGSOptions(epochs=9, tol=1e-12, history=4, L=3,
@@ -239,10 +239,10 @@ def test_gd_sgd_chunked_resume():
     velocity) and SGD (momentum + decayed lr + stopping state) continue
     from a mid-run state to the identical final result."""
     import numpy as np
-    from lbfgs_ffnn_tpu.solvers import GDOptions, SGDOptions
-    from lbfgs_ffnn_tpu.solvers.gd import gd_chunked
-    from lbfgs_ffnn_tpu.solvers.sgd import sgd_chunked
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_problem
+    from lbfgs_ffnn.solvers import GDOptions, SGDOptions
+    from lbfgs_ffnn.solvers.gd import gd_chunked
+    from lbfgs_ffnn.solvers.sgd import sgd_chunked
+    from lbfgs_ffnn.objectives.mlp import mlp_problem
 
     prob_b, w0, x, y = _mlp_setup()
     # GD over the full-batch problem
@@ -281,8 +281,8 @@ def test_slbfgs_pair_dtype_bf16():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
-    from lbfgs_ffnn_tpu.solvers import SLBFGSOptions, slbfgs
+    from lbfgs_ffnn.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
+    from lbfgs_ffnn.solvers import SLBFGSOptions, slbfgs
 
     rng = np.random.default_rng(3)
     x = jnp.asarray(rng.normal(size=(256, 12)), jnp.float32)
@@ -306,8 +306,8 @@ def test_scan_unroll_bitwise_identical():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
-    from lbfgs_ffnn_tpu.solvers import SGDOptions, SLBFGSOptions, sgd, slbfgs
+    from lbfgs_ffnn.objectives.mlp import mlp_batch_problem, mlp_init, mlp_spec
+    from lbfgs_ffnn.solvers import SGDOptions, SLBFGSOptions, sgd, slbfgs
 
     rng = np.random.default_rng(7)
     x = jnp.asarray(rng.normal(size=(531, 20)))

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.runtime import get_lib
-from lbfgs_ffnn_tpu.runtime.streamer import BatchStreamer
+from lbfgs_ffnn.runtime import get_lib
+from lbfgs_ffnn.runtime.streamer import BatchStreamer
 
 
 def _dataset(n=37, xdim=5):
@@ -69,9 +69,9 @@ def test_streamer_trailing_batch_and_drop_last():
 
 
 def test_sgd_streaming_trains():
-    from lbfgs_ffnn_tpu.solvers import SGDOptions
-    from lbfgs_ffnn_tpu.solvers.sgd import sgd_streaming
-    from lbfgs_ffnn_tpu.types import make_batch_problem
+    from lbfgs_ffnn.solvers import SGDOptions
+    from lbfgs_ffnn.solvers.sgd import sgd_streaming
+    from lbfgs_ffnn.types import make_batch_problem
 
     rng = np.random.default_rng(0)
     n, d = 64, 3
@@ -127,9 +127,9 @@ def test_sgd_streaming_epoch_count_indivisible(drop_last):
     """Epoch accounting must follow the streamer's epoch labels even when
     n % batch != 0 (the trailing-batch / drop_last corner)."""
     import jax.numpy as jnp
-    from lbfgs_ffnn_tpu.solvers import SGDOptions
-    from lbfgs_ffnn_tpu.solvers.sgd import sgd_streaming
-    from lbfgs_ffnn_tpu.types import make_batch_problem
+    from lbfgs_ffnn.solvers import SGDOptions
+    from lbfgs_ffnn.solvers.sgd import sgd_streaming
+    from lbfgs_ffnn.types import make_batch_problem
 
     rng = np.random.default_rng(1)
     n, d = 22, 3  # 22 % 8 != 0
@@ -147,9 +147,9 @@ def test_sgd_streaming_epoch_count_indivisible(drop_last):
 
 def test_sgd_streaming_zero_epochs():
     import jax.numpy as jnp
-    from lbfgs_ffnn_tpu.solvers import SGDOptions
-    from lbfgs_ffnn_tpu.solvers.sgd import sgd_streaming
-    from lbfgs_ffnn_tpu.types import make_batch_problem
+    from lbfgs_ffnn.solvers import SGDOptions
+    from lbfgs_ffnn.solvers.sgd import sgd_streaming
+    from lbfgs_ffnn.types import make_batch_problem
 
     x, y = _dataset(8)
     prob = make_batch_problem(lambda w, xb, yb: 0.5 * (xb @ w - yb[:, 0]) ** 2)
@@ -206,10 +206,10 @@ def test_sgd_streaming_full_eval_hook():
     gradient norm per epoch (reference recorder semantics, s_gd.hpp:108-131)
     — here built from the out-of-core chunked evaluator, so the streaming
     path emits a reference-comparable history without resident data."""
-    from lbfgs_ffnn_tpu.data.outofcore import ChunkStore, outofcore_problem
-    from lbfgs_ffnn_tpu.solvers import SGDOptions
-    from lbfgs_ffnn_tpu.solvers.sgd import sgd_streaming
-    from lbfgs_ffnn_tpu.types import make_batch_problem
+    from lbfgs_ffnn.data.outofcore import ChunkStore, outofcore_problem
+    from lbfgs_ffnn.solvers import SGDOptions
+    from lbfgs_ffnn.solvers.sgd import sgd_streaming
+    from lbfgs_ffnn.types import make_batch_problem
 
     rng = np.random.default_rng(1)
     n, d = 48, 3

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.ops.two_loop import (
+from lbfgs_ffnn.ops.two_loop import (
     empty_history_state,
     ring_push,
     ring_reset,
@@ -110,10 +110,10 @@ def test_gamma_clamp_guard():
 
 
 def test_compact_matches_loop_form():
-    """The GEMM-form compact recursion (the >VMEM-budget fallback) computes
+    """The GEMM-form compact recursion computes
     the same H_k @ v as the loop form across fills, wrap-around and both
     gamma policies."""
-    from lbfgs_ffnn_tpu.ops.two_loop import two_loop_compact
+    from lbfgs_ffnn.ops.two_loop import two_loop_compact
 
     rng = np.random.default_rng(3)
     for n, m, k in [(300, 5, 0), (300, 5, 3), (300, 5, 5), (300, 4, 9),
@@ -139,7 +139,7 @@ def test_compact_matches_loop_form():
 def test_gram_push_maintains_exact_gram():
     """GramRing's incremental M == the fresh S.Y^T Gram (physical slots)
     through fills, wrap-around, and a rejected push; yy likewise."""
-    from lbfgs_ffnn_tpu.ops.two_loop import GramRing, gram_empty, gram_push
+    from lbfgs_ffnn.ops.two_loop import GramRing, gram_empty, gram_push
 
     rng = np.random.default_rng(11)
     n, m = 300, 4
@@ -170,3 +170,132 @@ def test_gram_push_maintains_exact_gram():
                 float(gr.yy[i]), float(Y2[i] @ Y2[i]), rtol=1e-12
             )
     assert int(gr.ring.count) == m and pushes > m  # wrapped
+
+
+def _random_history(m, n, k, seed=0, dtype=jnp.float32):
+    rng = np.random.default_rng(seed)
+    hist = empty_history_state(m, n, dtype)
+    pushed = 0
+    while pushed < k:
+        s = rng.normal(size=n)
+        y = rng.normal(size=n) + 0.5 * s
+        if s @ y > 1e-3:
+            s_j = jnp.asarray(s, dtype=dtype)
+            y_j = jnp.asarray(y, dtype=dtype)
+            hist = ring_push(hist, s_j, y_j, 1.0 / jnp.vdot(y_j, s_j),
+                             jnp.array(True))
+            pushed += 1
+    return hist
+
+
+@pytest.mark.parametrize("impl", ["xla", "compact"])
+@pytest.mark.parametrize("m,k,n,tol", [
+    (6, 4, 200_000, 5e-4),   # partly filled ring
+    (6, 9, 200_000, 5e-4),   # wrapped ring
+    (3, 2, 525_312, 1e-3),   # half a million parameters
+])
+def test_two_loop_f32_matches_f64_oracle_at_scale(impl, m, k, n, tol):
+    """Both f32 forms of the direction against the same recursion run in
+    float64, at parameter counts where the f32 reductions accumulate real
+    rounding error (dots of magnitude ~sqrt(n))."""
+    from lbfgs_ffnn.ops.two_loop import two_loop_compact
+
+    fn = {"xla": two_loop, "compact": two_loop_compact}[impl]
+    hist = _random_history(m, n, k, seed=m + k)
+    v = jnp.asarray(np.random.default_rng(3).normal(size=n), dtype=jnp.float32)
+    hist64 = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float64) if a.dtype == jnp.float32 else a, hist
+    )
+    oracle = np.asarray(two_loop(v.astype(jnp.float64), hist64))
+    r = np.asarray(fn(v, hist))
+    assert r.dtype == np.float32
+    np.testing.assert_allclose(r, oracle, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("impl", ["xla", "compact"])
+def test_bf16_pair_ring_matches_f32_ring(impl):
+    """pair_dtype="bfloat16" ring: every implementation must (a) agree with
+    the f32-ring result at bf16 rounding tolerance, and (b) agree with the
+    loop form running on the SAME bf16 ring to f32 round-off — the rounding
+    happens once, at the push, not per-implementation."""
+    from lbfgs_ffnn.ops.two_loop import two_loop_compact
+
+    m, n, k = 5, 3000, 4
+    rng = np.random.default_rng(11)
+    h16 = empty_history_state(m, n, jnp.float32, pair_dtype=jnp.bfloat16)
+    hf = empty_history_state(m, n, jnp.float32)
+    assert h16.S.dtype == jnp.bfloat16 and h16.rho.dtype == jnp.float32
+    assert h16.S.shape[1] % 16 == 0  # rows padded to the bf16 alignment
+    for _ in range(k):
+        s = rng.normal(size=n)
+        y = rng.normal(size=n) + 0.5 * s
+        sj = jnp.asarray(s, jnp.float32)
+        yj = jnp.asarray(y, jnp.float32)
+        rho = 1.0 / jnp.vdot(yj, sj)
+        h16 = ring_push(h16, sj, yj, rho, jnp.array(True))
+        hf = ring_push(hf, sj, yj, rho, jnp.array(True))
+    v = jnp.asarray(rng.normal(size=n), jnp.float32)
+    r_f32 = np.asarray(two_loop(v, hf))
+    fn = {"xla": two_loop, "compact": two_loop_compact}[impl]
+    r = np.asarray(fn(v, h16))
+    assert r.dtype == np.float32  # arithmetic stays in the solver dtype
+    scale = np.abs(r_f32).max()
+    assert np.abs(r - r_f32).max() / scale < 5e-3      # bf16 storage rounding
+    r16_ref = np.asarray(two_loop(v, h16))
+    assert np.abs(r - r16_ref).max() / scale < 5e-5    # same-ring consistency
+
+
+def test_lbfgs_pair_dtype_option():
+    """Solver-level bf16 ring: converges like the f32 ring on a small MLP,
+    the carried history really is bf16, and the mesh mode runs it too."""
+    from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+    from lbfgs_ffnn.solvers.lbfgs import LBFGSOptions, lbfgs
+
+    rng = np.random.default_rng(5)
+    X = jnp.asarray(rng.normal(size=(256, 16)), jnp.float32)
+    Y = jax.nn.one_hot(jnp.asarray(rng.integers(0, 4, 256)), 4,
+                       dtype=jnp.float32)
+    spec = mlp_spec([16, 32, 4], ["relu", "linear"])
+    prob = mlp_problem(spec)
+    w0 = mlp_init(spec, jax.random.PRNGKey(0), dtype=jnp.float32)
+    res_f = lbfgs(prob, w0, (X, Y), LBFGSOptions(max_iters=60, m=10))
+    res_b = lbfgs(prob, w0, (X, Y),
+                  LBFGSOptions(max_iters=60, m=10, pair_dtype="bfloat16"))
+    assert float(res_b.final_loss) < 1.10 * float(res_f.final_loss) + 1e-3
+
+    from jax.sharding import Mesh
+
+    # Mesh mode accepts the narrow ring too (rows padded to the bf16
+    # alignment, partial dots promote before the psum so accumulation stays
+    # f32) — multi-device trajectory parity is pinned in
+    # tests/test_parallel.py::test_lbfgs_param_sharded_bf16_ring_full_solver.
+    mesh = Mesh(np.array(jax.devices()[:1]), ("model",))
+    res_m = lbfgs(prob, w0, (X, Y),
+                  LBFGSOptions(max_iters=3, pair_dtype="bfloat16"), mesh=mesh)
+    assert int(res_m.n_iters) == 3
+
+
+@pytest.mark.parametrize("solver", ["lbfgs", "lbfgs_mesh", "slbfgs"])
+def test_unknown_two_loop_impl_is_rejected(solver):
+    """Only the loop and compact forms exist; any other name (e.g. the
+    retired fused-kernel option) raises instead of silently picking one."""
+    from jax.sharding import Mesh
+
+    from lbfgs_ffnn.objectives.mlp import (
+        mlp_batch_problem, mlp_init, mlp_problem, mlp_spec,
+    )
+    from lbfgs_ffnn.solvers import LBFGSOptions, SLBFGSOptions, lbfgs, slbfgs
+
+    spec = mlp_spec([4, 3, 2], ["relu", "linear"])
+    w0 = mlp_init(spec, jax.random.PRNGKey(0), dtype=jnp.float32)
+    X = jnp.ones((8, 4), jnp.float32)
+    Y = jnp.zeros((8, 2), jnp.float32)
+    with pytest.raises(ValueError, match="two_loop_impl"):
+        if solver == "slbfgs":
+            slbfgs(mlp_batch_problem(spec), w0, X, Y,
+                   SLBFGSOptions(epochs=1, batch_size=4, two_loop_impl="pallas"))
+        else:
+            mesh = (Mesh(np.array(jax.devices()[:1]), ("model",))
+                    if solver == "lbfgs_mesh" else None)
+            lbfgs(mlp_problem(spec), w0, (X, Y),
+                  LBFGSOptions(max_iters=2, two_loop_impl="pallas"), mesh=mesh)

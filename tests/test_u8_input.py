@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
-from lbfgs_ffnn_tpu.types import prepared_aux
+from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
+from lbfgs_ffnn.types import prepared_aux
 
 
 def _pixel_setup(d_in=9, d1=6, d_out=3, n=64, seed=0):
@@ -144,7 +144,7 @@ def test_u8_fun_input_remat_gradient():
 
 
 def test_u8_fun_input_gd_trains():
-    from lbfgs_ffnn_tpu.solvers import GDOptions, gradient_descent
+    from lbfgs_ffnn.solvers import GDOptions, gradient_descent
 
     spec, w, p, x, y, _ = _pixel_setup(d_in=16, d1=32, d_out=4, n=256)
     opts = GDOptions(max_iters=120, step_size=0.05, momentum=0.9,
@@ -164,8 +164,8 @@ def test_u8_fun_line_dtype_mismatch_raises():
 
 
 def test_u8_launcher_end_to_end():
-    from lbfgs_ffnn_tpu.data.datasets import load_mnist
-    from lbfgs_ffnn_tpu.launcher import Launcher, UnifiedConfig
+    from lbfgs_ffnn.data.datasets import load_mnist
+    from lbfgs_ffnn.launcher import Launcher, UnifiedConfig
 
     ds = load_mnist(train_size=256, test_size=64)
     l = (Launcher("cuda").add_layer(784, 16, "relu")
@@ -183,7 +183,7 @@ def test_u8_batch_problem_value_and_grad_parity():
     """The batch problem fed a pixel-quantized batch agrees with the raw
     f32 batch to f32 rounding: the quant-aware mlp_apply upcasts inside the
     first dot and rescales its output epilogue."""
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_batch_problem, quantize_pixels
+    from lbfgs_ffnn.objectives.mlp import mlp_batch_problem, quantize_pixels
 
     spec, w, p, x, y, pix = _pixel_setup()
     bp = mlp_batch_problem(spec, lam=1e-4)
@@ -199,7 +199,7 @@ def test_u8_batch_problem_value_and_grad_parity():
 def test_u8_batch_problem_masked_ragged_tail():
     """fun_masked/grad_masked through u8 batches: zeroed masked rows stay
     exact (integer zeros) and match the f32 masked path."""
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_batch_problem, quantize_pixels
+    from lbfgs_ffnn.objectives.mlp import mlp_batch_problem, quantize_pixels
 
     spec, w, p, x, y, _ = _pixel_setup(n=8)
     bp = mlp_batch_problem(spec)
@@ -218,7 +218,7 @@ def test_mlp_apply_rejects_non_uint8_integers():
     """Only uint8 carries the round(x*255) convention; other integer inputs
     (raw counts, labels in the wrong slot) must fail loudly instead of
     being silently divided by 255."""
-    from lbfgs_ffnn_tpu.objectives.mlp import mlp_apply
+    from lbfgs_ffnn.objectives.mlp import mlp_apply
 
     spec = mlp_spec([4, 3, 2], ["relu", "linear"])
     w = mlp_init(spec, jax.random.PRNGKey(0), dtype=jnp.float32)
@@ -232,8 +232,8 @@ def test_u8_sgd_launcher_end_to_end():
     quantized input (per-step batch reads AND the per-epoch full record at
     quarter width); the run must track the f32 run's loss closely on
     on-grid data and record per-epoch accuracy."""
-    from lbfgs_ffnn_tpu.data.datasets import load_mnist
-    from lbfgs_ffnn_tpu.launcher import Launcher, UnifiedConfig
+    from lbfgs_ffnn.data.datasets import load_mnist
+    from lbfgs_ffnn.launcher import Launcher, UnifiedConfig
 
     ds = load_mnist(train_size=512, test_size=64)
     l = (Launcher("cuda").add_layer(784, 16, "relu")

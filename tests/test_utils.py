@@ -6,8 +6,8 @@ import os
 import jax
 import jax.numpy as jnp
 
-from lbfgs_ffnn_tpu.utils.diagnostics import check_parallelism, sync_time
-from lbfgs_ffnn_tpu.utils.profiling import trace
+from lbfgs_ffnn.utils.diagnostics import check_parallelism, sync_time
+from lbfgs_ffnn.utils.profiling import trace
 
 
 def test_check_parallelism_reports_devices():

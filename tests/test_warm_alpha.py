@@ -1,9 +1,9 @@
 """Warm-started line-search initial step (LBFGSOptions.ls_alpha_init="warm").
 
-TPU-only policy, no reference counterpart: near a loss plateau the accepted
+No reference counterpart: near a loss plateau the accepted
 step collapses by orders of magnitude and the reference's fixed alpha0=1
 restart burns the whole trial budget re-shrinking every iteration
-(docs/PERF.md round 4: 13-20 trials/iter measured on the MLP headlines).
+(PERF.md: 13-20 trials/iter measured on the MLP headlines).
 Warm-starting at min(1, growth * alpha_prev) resumes at the established
 scale. These tests pin the mechanism (trial-count reduction on a crafted
 persistent-backtracking objective), convergence under both line-search
@@ -15,11 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lbfgs_ffnn_tpu.objectives.analytic import rosenbrock_problem
-from lbfgs_ffnn_tpu.objectives.mlp import mlp_init, mlp_problem, mlp_spec
-from lbfgs_ffnn_tpu.solvers import LBFGSOptions, lbfgs
-from lbfgs_ffnn_tpu.solvers.lbfgs import lbfgs_chunked
-from lbfgs_ffnn_tpu.types import make_problem
+from lbfgs_ffnn.objectives.analytic import rosenbrock_problem
+from lbfgs_ffnn.objectives.mlp import mlp_init, mlp_problem, mlp_spec
+from lbfgs_ffnn.solvers import LBFGSOptions, lbfgs
+from lbfgs_ffnn.solvers.lbfgs import lbfgs_chunked
+from lbfgs_ffnn.types import make_problem
 
 
 @pytest.mark.parametrize("ls", ["armijo", "wolfe", "armijo_batched"])
@@ -37,7 +37,7 @@ def _oscillatory_plateau():
     """f = 0.5||w||^2 + 1e-4 * sum(sin(1e4 * w)).
 
     The high-frequency term is the deterministic analogue of the f32 loss
-    noise that drives the MLP headline's plateau backtracking (docs/PERF.md
+    noise that drives the MLP headline's plateau backtracking (PERF.md
     round 4): large trial steps sample the oscillation (O(1e-4) increase as
     often as decrease, so Armijo keeps failing), while steps below the
     oscillation wavelength see the smooth quadratic slope and accept. The
@@ -88,7 +88,7 @@ def test_warm_mesh_mode_parity():
     the single-device run (the alpha carry is a replicated scalar)."""
     if len(jax.devices()) < 2:
         pytest.skip("needs multi-device (virtual CPU farm)")
-    from lbfgs_ffnn_tpu.parallel import make_mesh
+    from lbfgs_ffnn.parallel import make_mesh
 
     spec = mlp_spec([12, 16, 4], ["tanh", "linear"])
     prob = mlp_problem(spec)
@@ -108,11 +108,11 @@ def test_warm_mesh_mode_parity():
 def test_warm_growth_default_unified():
     """One warm-alpha growth default across layers (VERDICT r4 weak #3): a
     direct-API user opting into ls_alpha_init="warm" gets the benchmarked
-    growth (8.0, docs/PERF.md round 4), identical to the launcher's
+    growth (8.0, PERF.md), identical to the launcher's
     UnifiedConfig default — so the same nominal config yields the same
     trajectory through either surface (solvers are pure functions of
     (problem, opts), so options equality IS trajectory equality)."""
-    from lbfgs_ffnn_tpu.launcher import Launcher, UnifiedConfig
+    from lbfgs_ffnn.launcher import Launcher, UnifiedConfig
 
     assert LBFGSOptions().ls_alpha_growth == UnifiedConfig().ls_alpha_growth == 8.0
     launcher = (Launcher(backend_style="cuda")
